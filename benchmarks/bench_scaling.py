@@ -1,18 +1,13 @@
 #!/usr/bin/env python
-"""Scaling-efficiency artifact (BASELINE.md last row; round-3 VERDICT
-missing #2): solves/s at 1 device and at all local devices, via
-``parallel.distributed.scaling_table``.
+"""Scaling efficiency (BASELINE.md last row): solves/s at 1 device and at
+all local devices, via ``parallel.distributed.scaling_table``.
 
-Two environments produce the two halves of the artifact:
+- ``--cpu``: the virtual 8-device CPU mesh — checks the batch-sharding
+  path, not its speed.
+- default: the local GPUs; with one card, one_host is skipped and only the
+  absolute row is recorded.
 
-- ``--cpu``: the virtual 8-device CPU mesh (the only multi-device mesh in
-  this environment) — records the batch-sharding *efficiency* shape.
-- default (TPU): the 1-real-chip row that a future pod run extends; with
-  one chip, one_host is skipped and only the absolute row is recorded.
-
-Results merge into benchmarks/results_scaling.json (one file, keyed by
-environment), so the pod run (benchmarks/tpu_runbook.sh step 9) is a
-one-liner later.
+    python benchmarks/bench_scaling.py [--cpu] [--batch B] [--out FILE]
 """
 
 import argparse
@@ -28,8 +23,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--batch", type=int, default=None)
-    ap.add_argument("--out", default=os.path.join(
-        HERE, "results_scaling.json"))
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
     if args.cpu:
@@ -38,16 +32,15 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        os.path.dirname(HERE), ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
     import numpy as np
 
-    from mahi_mpc_tpu import ModelParameters, SolverOptions
-    from mahi_mpc_tpu.models import make_dynamics
-    from mahi_mpc_tpu.parallel.distributed import scaling_table
-    from mahi_mpc_tpu.transcribe.shooting import default_params, make_problem
+    from mahi_mpc import ModelParameters, SolverOptions
+    from mahi_mpc.models import make_dynamics
+    from mahi_mpc.parallel.distributed import scaling_table
+    from mahi_mpc.transcribe.shooting import default_params, make_problem
+    from mahi_mpc.utils.cache import enable_compile_cache
+    enable_compile_cache()
 
     batch = args.batch or (256 if args.cpu else 4096)
     dyn = make_dynamics("mahi_arm")
@@ -70,21 +63,14 @@ def main():
             0.2 * rng.standard_normal((batch, prob.N, prob.nx)), dtype))
 
     table = scaling_table(prob, pb, opts)
-    env = "cpu_mesh_8dev" if args.cpu else "tpu"
-    entry = {"batch": batch, "backend": jax.default_backend(),
-             "device0": str(jax.devices()[0]), **table}
-    print(json.dumps({env: entry}, indent=1), flush=True)
-
-    merged = {}
-    if os.path.exists(args.out):
-        try:
-            merged = json.load(open(args.out))
-        except Exception:
-            merged = {}
-    merged[env] = entry
-    with open(args.out, "w") as f:
-        json.dump(merged, f, indent=1)
-    print("wrote", args.out)
+    dev = jax.devices()[0]
+    entry = {"batch": batch, "platform": dev.platform,
+             "kind": dev.device_kind, **table}
+    print(json.dumps(entry, indent=1), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(entry, f, indent=1)
+        print("wrote", args.out)
 
 
 if __name__ == "__main__":

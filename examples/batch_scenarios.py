@@ -27,10 +27,11 @@ _select_platform(sys.argv)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from mahi_mpc_tpu import ModelParameters, SolverOptions  # noqa: E402
-from mahi_mpc_tpu.models import make_dynamics  # noqa: E402
-from mahi_mpc_tpu.models.integrators import rk4_step  # noqa: E402
-from mahi_mpc_tpu.runtime import BatchModelControl  # noqa: E402
+from mahi_mpc import ModelParameters, SolverOptions  # noqa: E402
+from mahi_mpc.models import make_dynamics  # noqa: E402
+from mahi_mpc.models.integrators import rk4_step  # noqa: E402
+from mahi_mpc.runtime import BatchModelControl  # noqa: E402
+from mahi_mpc.utils.cache import enable_compile_cache  # noqa: E402
 
 
 def main():
@@ -38,16 +39,9 @@ def main():
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--model", default="mahi_arm")
-    ap.add_argument("--warm-solver", default="auto",
-                    choices=["auto", "fused", "fixed", "adaptive"],
-                    help="'fused' serves warm steps from the one-launch "
-                         "Pallas SQP kernel (solver/fused.py, round 4)")
     ap.add_argument("--platform", default=None)
     args = ap.parse_args()
-
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache"))
+    enable_compile_cache()
 
     dyn = make_dynamics(args.model)
     nq = dyn.nx // 2
@@ -57,8 +51,7 @@ def main():
         dynamics_name=args.model)
     svc = BatchModelControl(
         mp, batch=args.batch, dynamics=dyn,
-        opts=SolverOptions(tol=1e-4, max_iter=12,
-                           warm_solver=args.warm_solver),
+        opts=SolverOptions(tol=1e-4, max_iter=12),
         Q=[10.0] * nq + [1.0] * nq, R=[0.1] * dyn.nu, Rm=[0.01] * dyn.nu)
 
     rng = np.random.default_rng(0)

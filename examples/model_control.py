@@ -29,11 +29,11 @@ _select_platform(sys.argv)
 
 import jax.numpy as jnp  # noqa: E402
 
-from mahi_mpc_tpu import SolverOptions  # noqa: E402
-from mahi_mpc_tpu.models import make_dynamics  # noqa: E402
-from mahi_mpc_tpu.models.integrators import rk4_step  # noqa: E402
-from mahi_mpc_tpu.runtime import ModelControl  # noqa: E402
-from mahi_mpc_tpu.utils import ControlLog  # noqa: E402
+from mahi_mpc import SolverOptions  # noqa: E402
+from mahi_mpc.models import make_dynamics  # noqa: E402
+from mahi_mpc.models.integrators import rk4_step  # noqa: E402
+from mahi_mpc.runtime import ModelControl  # noqa: E402
+from mahi_mpc.utils import ControlLog  # noqa: E402
 
 
 def reference_traj(mp, t, amp=0.3, freq=1.0):

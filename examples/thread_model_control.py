@@ -28,10 +28,10 @@ def _select_platform(argv):
 
 _select_platform(sys.argv)
 
-from mahi_mpc_tpu import SolverOptions
-from mahi_mpc_tpu.models import make_dynamics
-from mahi_mpc_tpu.models.integrators import rk4_step
-from mahi_mpc_tpu.runtime import ModelControl
+from mahi_mpc import SolverOptions
+from mahi_mpc.models import make_dynamics
+from mahi_mpc.models.integrators import rk4_step
+from mahi_mpc.runtime import ModelControl
 
 
 def reference_traj(mp, t):
@@ -58,9 +58,9 @@ def main():
     ap.add_argument("-q", type=float, nargs="*", default=None)
     ap.add_argument("-r", type=float, nargs="*", default=None)
     ap.add_argument("--warm-solver", default="auto",
-                    choices=["auto", "fused", "fixed", "adaptive"],
-                    help="'fused' serves warm re-solves from the one-launch "
-                         "Pallas SQP kernel (solver/fused.py, round 4)")
+                    choices=["auto", "fixed", "adaptive"],
+                    help="'fixed' serves warm re-solves from the "
+                         "straight-line 3-iteration program (solve_fixed)")
     ap.add_argument("--platform", default=None,
                     help="jax platform override (e.g. cpu)")
     args = ap.parse_args()
@@ -69,8 +69,8 @@ def main():
                       Rm=None, opts=SolverOptions(tol=1e-4, max_iter=40,
                                                   warm_solver=args.warm_solver,
                                                   fixed_warm_iters=3 if
-                                                  args.warm_solver in
-                                                  ("fused", "fixed") else 0))
+                                                  args.warm_solver == "fixed"
+                                                  else 0))
     mp = mc.params
     print(f"loaded '{mp.name}': nx={mp.num_x}, nu={mp.num_u}, N={mp.num_shooting_nodes}")
     if args.q is None:

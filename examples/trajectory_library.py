@@ -25,9 +25,9 @@ def _select_platform(argv):
 
 _select_platform(sys.argv)
 
-from mahi_mpc_tpu import SolverOptions, TrajectoryParameters  # noqa: E402
-from mahi_mpc_tpu.models import make_dynamics  # noqa: E402
-from mahi_mpc_tpu.trajgen import TrajectoryGenerator, write_library_csv  # noqa: E402
+from mahi_mpc import SolverOptions, TrajectoryParameters  # noqa: E402
+from mahi_mpc.models import make_dynamics  # noqa: E402
+from mahi_mpc.trajgen import TrajectoryGenerator, write_library_csv  # noqa: E402
 
 
 def main():

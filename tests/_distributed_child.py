@@ -24,7 +24,7 @@ def main():
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    from mahi_mpc_tpu.parallel.distributed import initialize_distributed
+    from mahi_mpc.parallel.distributed import initialize_distributed
 
     assert initialize_distributed(
         coordinator_address=f"localhost:{port}",
@@ -36,13 +36,13 @@ def main():
     import numpy as np
     from jax.experimental import multihost_utils
 
-    from mahi_mpc_tpu import ModelParameters, SolverOptions
-    from mahi_mpc_tpu.models import make_dynamics
-    from mahi_mpc_tpu.parallel.distributed import (global_batch_mesh,
+    from mahi_mpc import ModelParameters, SolverOptions
+    from mahi_mpc.models import make_dynamics
+    from mahi_mpc.parallel.distributed import (global_batch_mesh,
                                                    scaling_table,
                                                    shard_params_global)
-    from mahi_mpc_tpu.parallel.mesh import make_sharded_solver
-    from mahi_mpc_tpu.transcribe.shooting import default_params, make_problem
+    from mahi_mpc.parallel.mesh import make_sharded_solver
+    from mahi_mpc.transcribe.shooting import default_params, make_problem
 
     dyn = make_dynamics("double_pendulum")
     mp = ModelParameters("dist_dp", num_x=4, num_u=2, step_size=0.02,
@@ -66,7 +66,7 @@ def main():
     mesh = global_batch_mesh()
     p_g = shard_params_global(p_b, mesh)
     fn = make_sharded_solver(prob, mesh, opts, donate_warm_start=False)
-    from mahi_mpc_tpu.parallel.mesh import batch_spec
+    from mahi_mpc.parallel.mesh import batch_spec
     Zx = np.zeros((B, 9, 4), np.float32)
     Zu = np.zeros((B, 8, 2), np.float32)
     spec = batch_spec(mesh)

@@ -4,12 +4,11 @@ randomized instances on the virtual mesh, failure isolation, checkpoint."""
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
-from mahi_mpc_tpu import ModelParameters, SolverOptions
-from mahi_mpc_tpu.models import make_dynamics
-from mahi_mpc_tpu.models.integrators import rk4_step
-from mahi_mpc_tpu.runtime import BatchModelControl
+from mahi_mpc import ModelParameters, SolverOptions
+from mahi_mpc.models import make_dynamics
+from mahi_mpc.models.integrators import rk4_step
+from mahi_mpc.runtime import BatchModelControl
 
 
 def _service(B=16, N=20):
@@ -81,39 +80,3 @@ def test_checkpoint_roundtrip():
     u_a = svc.step()
     u_b = svc2.step()
     np.testing.assert_allclose(u_a, u_b, atol=1e-6)
-
-
-@pytest.mark.slow
-def test_fused_warm_service():
-    """warm_solver='fused' (round 4): warm service steps run through the
-    one-launch Pallas kernel; closed loop still converges and metrics are
-    sane.  Interpret mode on CPU (small tile auto-selected)."""
-    B = 8
-    dyn = make_dynamics("mahi_arm")
-    mp = ModelParameters("bsvc_f", num_x=dyn.nx, num_u=dyn.nu,
-                         step_size=0.005, num_shooting_nodes=10,
-                         u_min=[-25.0] * dyn.nu, u_max=[25.0] * dyn.nu,
-                         dynamics_name="mahi_arm")
-    svc = BatchModelControl(
-        mp, batch=B,
-        opts=SolverOptions(tol=1e-4, max_iter=40, warm_solver="fused"),
-        Q=[20.0] * 4 + [1.0] * 4, R=[0.05] * 4, Rm=[0.0] * 4)
-    assert svc._step_warm is not None
-    plant = jax.jit(jax.vmap(rk4_step(dyn.f_scalar if hasattr(dyn, "f_scalar")
-                                      else (lambda xx, uu: dyn.f(xx, uu)),
-                                      mp.step_size)))
-    rng = np.random.default_rng(2)
-    goals = rng.uniform(-0.3, 0.3, (B, 4))
-    x_des = np.zeros((B, mp.num_shooting_nodes, dyn.nx))
-    x_des[:, :, :4] = goals[:, None, :]
-    svc.set_references(x_des)
-    x = np.zeros((B, dyn.nx))
-    err0 = np.abs(x[:, :4] - goals).max()
-    for k in range(25):
-        svc.set_states(x, u_prev=None if k == 0 else u)
-        u = svc.step()
-        x = np.asarray(plant(jnp.asarray(x), jnp.asarray(u)))
-    m = svc.metrics()
-    assert m["converged_frac"] > 0.9, m
-    assert np.abs(x[:, :4] - goals).max() < err0
-    assert np.all(np.isfinite(x))

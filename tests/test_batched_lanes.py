@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mahi_mpc_tpu import ModelParameters, SolverOptions
-from mahi_mpc_tpu.models import make_dynamics
-from mahi_mpc_tpu.solver import solve
-from mahi_mpc_tpu.solver.batched import (_defects_lanes, _linearize_lanes,
+from mahi_mpc import ModelParameters, SolverOptions
+from mahi_mpc.models import make_dynamics
+from mahi_mpc.solver import solve
+from mahi_mpc.solver.batched import (_defects_lanes, _linearize_lanes,
                                          solve_batch_lanes)
-from mahi_mpc_tpu.transcribe.shooting import default_params, make_problem
+from mahi_mpc.transcribe.shooting import default_params, make_problem
 
 
 def _setup(model="double_pendulum", B=8, N=12, bounded=True):
@@ -110,9 +110,8 @@ def test_lanes_warm_start_and_mu0():
 
 def test_lanes_solver_ltv_mode():
     """LTV (successive-linearization, reference C8) through the lanes path:
-    per-instance frozen (A, B), identical results to jax.vmap(solve) (round-2
-    VERDICT item 8: both lanes paths previously asserted not is_linear)."""
-    from mahi_mpc_tpu.transcribe.shooting import LinPoint
+    per-instance frozen (A, B), identical results to jax.vmap(solve)."""
+    from mahi_mpc.transcribe.shooting import LinPoint
 
     dyn = make_dynamics("double_pendulum")
     B, N = 8, 12

@@ -1,6 +1,6 @@
 """Multi-host (multi-process) execution test on the CPU simulation
-(SURVEY.md §4c; VERDICT r1 item 5: jax.distributed init + a 2-process
-variant of the sharded solve, results equal to single-process).
+(SURVEY.md §4c: jax.distributed init + a 2-process variant of the sharded
+solve, results equal to single-process).
 
 Two processes x 4 virtual CPU devices = one global 8-device mesh; both run
 the identical sharded program; process 0 allgathers the full result, and the
@@ -55,10 +55,10 @@ def test_two_process_global_mesh(tmp_path):
     assert abs(r0["U_sum"] - r1["U_sum"]) < 1e-4 * max(1.0, abs(r0["U_sum"]))
 
     # Single-process reference on the same problem/seed.
-    from mahi_mpc_tpu import ModelParameters, SolverOptions
-    from mahi_mpc_tpu.models import make_dynamics
-    from mahi_mpc_tpu.solver.batched import solve_batch_lanes
-    from mahi_mpc_tpu.transcribe.shooting import default_params, make_problem
+    from mahi_mpc import ModelParameters, SolverOptions
+    from mahi_mpc.models import make_dynamics
+    from mahi_mpc.solver.batched import solve_batch_lanes
+    from mahi_mpc.transcribe.shooting import default_params, make_problem
 
     dyn = make_dynamics("double_pendulum")
     mp = ModelParameters("dist_dp", num_x=4, num_u=2, step_size=0.02,

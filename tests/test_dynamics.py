@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mahi_mpc_tpu.models.arm import LinkSpec, make_serial_arm
-from mahi_mpc_tpu.models import (
+from mahi_mpc.models.arm import LinkSpec, make_serial_arm
+from mahi_mpc.models import (
     make_cartpole,
     make_double_pendulum,
     make_mahi_arm,
@@ -159,7 +159,7 @@ def test_integrator_convergence_order(method, order):
 
 def test_acrobot_underactuated():
     """Acrobot = double pendulum with TA=0; check consistency."""
-    from mahi_mpc_tpu.models import make_acrobot, make_double_pendulum
+    from mahi_mpc.models import make_acrobot, make_double_pendulum
     acro = make_acrobot()
     dp = make_double_pendulum()
     x = jnp.array([0.3, -0.2, 0.5, 0.1])
@@ -188,7 +188,7 @@ def test_rnea_bias_matches_lagrangian_oracle(dyn):
 
 # ---------------------------------------------------------------------------
 # Cross-validation against the reference's REAL 4-DOF exoskeleton mass matrix
-# (round-3 VERDICT missing #1).  The reference ships the full symbolic 4x4
+# The reference ships the full symbolic 4x4
 # mass matrix of the MAHI exo arm in joint/inertia parameters
 # (``src/inverseTest.cpp:59-83``; regenerated from ``util/Equations/`` by
 # ``util/testCorrectEquations.py:37-99``).  We parse those expressions at

@@ -5,10 +5,10 @@ import jax
 import pytest
 import jax.numpy as jnp
 
-from mahi_mpc_tpu import ModelParameters, SolverOptions
-from mahi_mpc_tpu.models import make_dynamics
-from mahi_mpc_tpu.solver import CONVERGED, solve, solve_fixed
-from mahi_mpc_tpu.transcribe.shooting import default_params, make_problem
+from mahi_mpc import ModelParameters, SolverOptions
+from mahi_mpc.models import make_dynamics
+from mahi_mpc.solver import CONVERGED, solve, solve_fixed
+from mahi_mpc.transcribe.shooting import default_params, make_problem
 
 
 def _setup():

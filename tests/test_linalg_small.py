@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mahi_mpc_tpu.ops import (chol_small, cho_solve_small, solve_small,
+from mahi_mpc.ops import (chol_small, cho_solve_small, solve_small,
                               spd_solve_small)
 
 

@@ -7,9 +7,9 @@ import time
 import numpy as np
 import pytest
 
-from mahi_mpc_tpu.runtime.native import (NativePacer, NativePlanServer,
+from mahi_mpc.runtime.native import (NativePacer, NativePlanServer,
                                          native_available)
-from mahi_mpc_tpu.runtime.plan import Plan
+from mahi_mpc.runtime.plan import Plan
 
 pytestmark = pytest.mark.skipif(not native_available(),
                                 reason="g++ unavailable")
@@ -74,9 +74,9 @@ def test_pacer_rate_and_stats():
 
 
 def test_model_control_with_native_server(tmp_path):
-    from mahi_mpc_tpu import ModelParameters, SolverOptions
-    from mahi_mpc_tpu.models import make_dynamics
-    from mahi_mpc_tpu.runtime import ModelControl
+    from mahi_mpc import ModelParameters, SolverOptions
+    from mahi_mpc.models import make_dynamics
+    from mahi_mpc.runtime import ModelControl
 
     mp = ModelParameters("nat", num_x=2, num_u=1, step_size=0.02,
                          num_shooting_nodes=10, u_min=[-8.0], u_max=[8.0],

@@ -5,14 +5,13 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
-from mahi_mpc_tpu import ModelParameters, SolverOptions
-from mahi_mpc_tpu.models import make_dynamics
-from mahi_mpc_tpu.parallel import (make_mesh, make_sharded_solver,
+from mahi_mpc import ModelParameters, SolverOptions
+from mahi_mpc.models import make_dynamics
+from mahi_mpc.parallel import (make_mesh, make_sharded_solver,
                                    scaling_report, shard_params)
-from mahi_mpc_tpu.solver import solve
-from mahi_mpc_tpu.transcribe.shooting import default_params, make_problem
+from mahi_mpc.solver import solve
+from mahi_mpc.transcribe.shooting import default_params, make_problem
 
 
 def _batch_problem(B=16, N=10, dtype=jnp.float32):
@@ -43,7 +42,7 @@ def test_sharded_matches_single_device():
     U0 = jnp.zeros((B, prob.N, prob.nu), dtype)
 
     # single-device reference: the same (lanes) implementation on one device
-    from mahi_mpc_tpu.solver.batched import solve_batch_lanes
+    from mahi_mpc.solver.batched import solve_batch_lanes
     ref = jax.jit(lambda p, x, u: solve_batch_lanes(prob, p, x, u, opts))(
         pb, X0, U0)
 
@@ -99,50 +98,3 @@ def test_donated_warm_start_loop():
         X, U = res.X, res.U
         iters.append(float(jnp.mean(res.iters)))
     assert iters[-1] <= iters[0]  # warm starts converge faster (or equal)
-
-
-@pytest.mark.slow
-def test_fused_sharded_matches_unsharded():
-    """Multi-chip fused path (round 4): shard_map of the one-launch Pallas
-    kernel over the 8-device batch mesh gives per-instance-identical
-    results to the unsharded fused solve (no solve-time collectives to
-    perturb anything)."""
-    from mahi_mpc_tpu.parallel.mesh import (make_fused_sharded_solver,
-                                            make_mesh, shard_params)
-    from mahi_mpc_tpu.solver.batched import solve_batch_lanes
-    from mahi_mpc_tpu.solver.fused import solve_batch_fused
-
-    dyn = make_dynamics("mahi_arm")
-    mp = ModelParameters("fshard", num_x=dyn.nx, num_u=dyn.nu,
-                         step_size=0.002, num_shooting_nodes=8,
-                         u_min=[-20.0] * dyn.nu, u_max=[20.0] * dyn.nu,
-                         dynamics_name="mahi_arm")
-    prob = make_problem(mp, dyn)
-    opts = SolverOptions(tol=1e-4, max_iter=30)
-    B = 16
-    dtype = jnp.float32
-    rng = np.random.default_rng(0)
-    p = default_params(mp, dtype=dtype)
-    pb = jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), p)
-    pb = pb._replace(
-        x0=jnp.asarray(0.2 * rng.standard_normal((B, dyn.nx)), dtype),
-        x_des=jnp.asarray(0.1 * rng.standard_normal((B, prob.N, dyn.nx)),
-                          dtype))
-    res0 = solve_batch_lanes(prob, pb, None, None, opts,
-                             mu0=jnp.asarray(opts.mu_init, dtype))
-    pb2 = pb._replace(x0=pb.x0 + 0.01)
-    mu_w = jnp.asarray(opts.warm_mu_factor * opts.tol, dtype)
-
-    ref = solve_batch_fused(prob, pb2, res0.X, res0.U, opts, mu0=mu_w,
-                            n_iter=3, tile=(1, 8), interpret=True)
-
-    mesh = make_mesh(n_time=1)
-    assert mesh.shape["batch"] == 8
-    fn = make_fused_sharded_solver(prob, mesh, opts, n_iter=3)
-    pbs = shard_params(pb2, mesh)
-    res = fn(pbs, res0.X, res0.U, mu_w)
-    np.testing.assert_allclose(np.asarray(res.U), np.asarray(ref.U),
-                               atol=2e-6)
-    np.testing.assert_allclose(np.asarray(res.X), np.asarray(ref.X),
-                               atol=2e-6)
-    assert bool(jnp.all(res.status == 0))

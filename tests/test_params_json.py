@@ -3,7 +3,7 @@
 import json
 import math
 
-from mahi_mpc_tpu import ModelParameters
+from mahi_mpc import ModelParameters
 
 
 def test_roundtrip_with_inf_sentinel(tmp_path):

@@ -7,11 +7,11 @@ re-optimize."""
 import numpy as np
 import jax.numpy as jnp
 
-from mahi_mpc_tpu import ModelParameters, SolverOptions
-from mahi_mpc_tpu.models import make_double_pendulum
-from mahi_mpc_tpu.solver import CONVERGED, solve
-from mahi_mpc_tpu.solver.batched import solve_batch_lanes
-from mahi_mpc_tpu.transcribe.shooting import default_params, make_problem
+from mahi_mpc import ModelParameters, SolverOptions
+from mahi_mpc.models import make_double_pendulum
+from mahi_mpc.solver import CONVERGED, solve
+from mahi_mpc.solver.batched import solve_batch_lanes
+from mahi_mpc.transcribe.shooting import default_params, make_problem
 
 
 def _setup():

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mahi_mpc_tpu.solver.riccati import solve_lqr_dense, solve_lqr_scan
-from mahi_mpc_tpu.solver.stage_qp import StageQP
+from mahi_mpc.solver.riccati import solve_lqr_dense, solve_lqr_scan
+from mahi_mpc.solver.stage_qp import StageQP
 
 jax.config.update("jax_enable_x64", True)
 
@@ -84,7 +84,7 @@ def test_vmapped_batch():
 
 def test_parallel_scan_matches_dense():
     """O(log N) associative-scan backend vs the dense KKT oracle."""
-    from mahi_mpc_tpu.solver.pariccati import solve_lqr_parallel
+    from mahi_mpc.solver.pariccati import solve_lqr_parallel
     par_jit = jax.jit(solve_lqr_parallel)  # eager op-by-op is ~80s on CPU
     for seed in [0, 1, 2]:
         qp = random_qp(N=16, seed=seed)
@@ -99,7 +99,7 @@ def test_parallel_scan_matches_dense():
 
 
 def test_parallel_scan_long_horizon():
-    from mahi_mpc_tpu.solver.pariccati import solve_lqr_parallel
+    from mahi_mpc.solver.pariccati import solve_lqr_parallel
     qp = random_qp(N=128, seed=3)
     a = jax.jit(solve_lqr_parallel)(qp)
     b = solve_lqr_scan(qp)

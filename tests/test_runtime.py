@@ -13,11 +13,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mahi_mpc_tpu import ModelParameters, SolverOptions
-from mahi_mpc_tpu.models import make_dynamics
-from mahi_mpc_tpu.models.integrators import rk4_step
-from mahi_mpc_tpu.runtime import ModelControl, ModelGenerator, generate_model
-from mahi_mpc_tpu.runtime.plan import Plan, empty_plan
+from mahi_mpc import ModelParameters, SolverOptions
+from mahi_mpc.models import make_dynamics
+from mahi_mpc.models.integrators import rk4_step
+from mahi_mpc.runtime import ModelControl, ModelGenerator, generate_model
+from mahi_mpc.runtime.plan import Plan, empty_plan
 
 
 def _pendulum_params(name, tmpdir=None, **kw):
@@ -116,9 +116,9 @@ def test_async_solver_thread(tmp_path):
     summ = mc.stats.summary()
     assert summ["solves"] > 5
     assert abs(float(x[0]) - 0.3 * np.sin(t)) < 0.25
-    # Steady state never serves a placeholder or stale plan (round-2 VERDICT
-    # item 10: fallback serves are observable and zero here — all 50
-    # control_at_time calls above came after the first successful solve).
+    # Steady state never serves a placeholder or stale plan (fallback serves
+    # are observable and zero here — all 50 control_at_time calls above came
+    # after the first successful solve).
     assert summ["served_placeholder"] == 0, summ
     assert summ["served_stale"] == 0, summ
 
@@ -173,7 +173,7 @@ def test_linear_mode_runtime(tmp_path):
 def test_fixed_warm_runtime_roundtrip(tmp_path):
     """fixed_warm_iters: the generator exports a straight-line warm program
     (<name>_warm.mpcx), the runtime loads it and uses it for warm re-solves."""
-    from mahi_mpc_tpu.runtime.generate import WARM_SUFFIX, generate_model
+    from mahi_mpc.runtime.generate import WARM_SUFFIX, generate_model
 
     mp = _pendulum_params("fixed_rt")
     opts = SolverOptions(tol=1e-5, max_iter=40, fixed_warm_iters=3)
@@ -189,47 +189,3 @@ def test_fixed_warm_runtime_roundtrip(tmp_path):
     assert p1.status in (0, 1) and p2.status in (0, 1)
     # warm plan continues the cold plan smoothly
     assert np.max(np.abs(p2.U - p1.U)) < 1.0
-
-
-def test_fused_warm_runtime():
-    """warm_solver='fused' (round 4): ModelControl serves warm re-solves
-    through the one-launch Pallas kernel (interpret mode on CPU) — cold
-    solves stay adaptive, plan continuity holds, statuses sane."""
-    dyn = make_dynamics("pendulum")
-    mp = _pendulum_params("fused_rt")
-    opts = SolverOptions(tol=1e-4, max_iter=40, warm_solver="fused",
-                         fixed_warm_iters=3)
-    mc = ModelControl(mp, dynamics=dyn, Q=[20.0, 1.0], R=[0.5], Rm=[0.0],
-                      opts=opts)
-    assert mc._warm_fn is not None
-    traj = _sin_traj(mp, 0.0)
-    p1 = mc.calc_u(0.0, [0.5, 0.0], [0.0], traj)       # cold: adaptive
-    p2 = mc.calc_u(0.002, [0.5, 0.01], [0.0], traj)    # warm: fused kernel
-    p3 = mc.calc_u(0.004, [0.5, 0.02], [0.0], traj)
-    assert p2.iters == 3 and p3.iters == 3
-    assert p3.status == 0, (p3.status, p3)
-    assert np.max(np.abs(p2.U - p1.U)) < 1.0
-    assert np.all(np.abs(p3.U) <= 8.0 + 1e-5)
-
-
-def test_fused_warm_artifact_export(tmp_path):
-    """warm_solver='fused': the generator exports a TPU-only one-launch
-    warm artifact (<name>_fusedwarm.mpcx) alongside the adaptive program;
-    on this CPU backend the runtime skips it (no Mosaic lowering) and
-    falls back to the fixed/adaptive program, so loading still works."""
-    from mahi_mpc_tpu.runtime.generate import FUSED_SUFFIX, generate_model
-
-    mp = _pendulum_params("fused_art")
-    opts = SolverOptions(tol=1e-4, max_iter=40, warm_solver="fused",
-                         fixed_warm_iters=3)
-    generate_model(mp, make_dynamics("pendulum"), tmp_path, opts)
-    assert (tmp_path / f"{mp.name}{FUSED_SUFFIX}").is_file()
-    assert (tmp_path / f"{mp.name}_warm.mpcx").is_file()
-
-    mc = ModelControl("fused_art", directory=tmp_path, opts=opts)
-    # CPU backend: fused artifact skipped, fixed warm program loaded.
-    assert mc._warm_fn is not None
-    traj = _sin_traj(mp, 0.0)
-    p1 = mc.calc_u(0.0, [0.3, 0.0], [0.0], traj)
-    p2 = mc.calc_u(0.002, [0.3, 0.01], [0.0], traj)
-    assert p2.status in (0, 1) and np.all(np.isfinite(p2.U))

@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import pytest
 from scipy.optimize import NonlinearConstraint, minimize
 
-from mahi_mpc_tpu import ModelParameters, SolverOptions
-from mahi_mpc_tpu.models import make_double_pendulum, make_pendulum
-from mahi_mpc_tpu.solver import CONVERGED, solve
-from mahi_mpc_tpu.transcribe.shooting import default_params, make_problem
+from mahi_mpc import ModelParameters, SolverOptions
+from mahi_mpc.models import make_double_pendulum, make_pendulum
+from mahi_mpc.solver import CONVERGED, solve
+from mahi_mpc.transcribe.shooting import default_params, make_problem
 
 jax.config.update("jax_enable_x64", True)
 
@@ -152,7 +152,7 @@ def test_linear_mode_matches_slsqp():
     x0 = jnp.array([0.2, 0.1, -0.1, 0.05])
     u0 = jnp.array([0.5, -0.3])
     A, B, xd0 = dyn.linearize(x0, u0)
-    from mahi_mpc_tpu.transcribe.shooting import LinPoint
+    from mahi_mpc.transcribe.shooting import LinPoint
     p = p._replace(x0=x0, u_prev=u0, lin=LinPoint(A, B, xd0, x0, u0))
 
     res = solve(prob, p, opts=SolverOptions(tol=1e-9, max_iter=30))
@@ -183,7 +183,7 @@ def test_mahi_arm_config4_matches_slsqp():
     dt=2 ms, bounded torques — the flagship problem (the round-1 suite never
     oracle-checked the arm above dynamics level).  Trajectory parity with the
     trusted solver at the 1e-3 tolerance of BASELINE.md."""
-    from mahi_mpc_tpu.models import make_mahi_arm
+    from mahi_mpc.models import make_mahi_arm
 
     dyn = make_mahi_arm()
     mp = ModelParameters("arm4", num_x=dyn.nx, num_u=dyn.nu, step_size=0.002,
@@ -223,8 +223,8 @@ def test_mahi_arm_closed_loop_tracks_oracle():
     at three snapshots along the run."""
     import functools
 
-    from mahi_mpc_tpu.models import make_mahi_arm
-    from mahi_mpc_tpu.models.integrators import rk4_step
+    from mahi_mpc.models import make_mahi_arm
+    from mahi_mpc.models.integrators import rk4_step
 
     dyn = make_mahi_arm()
     mp = ModelParameters("arm4cl", num_x=dyn.nx, num_u=dyn.nu,

@@ -1,7 +1,7 @@
 """State (x) box bounds exercised end-to-end (reference C5:
 ``ModelParameters.hpp:22-25``, runtime-stamped ``ModelControl.cpp:37-50``).
 
-Round-2 VERDICT item 5: the barrier-on-X path (stage_qp.py barrier terms on
+The barrier-on-X path (stage_qp.py barrier terms on
 X, fraction-to-boundary on dX) previously had no test, oracle, or benchmark
 with finite state bounds — only u-bounds were ever exercised.  These tests
 give the x-bound path the same evidence level:
@@ -9,7 +9,7 @@ give the x-bound path the same evidence level:
 - f64 oracle vs scipy SLSQP on the double pendulum with *binding* velocity
   limits;
 - the same on the 4-DOF arm (warm-started SLSQP, as the config-4 oracle);
-- lanes / all-lanes / pallas-backend parity on a bounded batch.
+- lanes and parallel-scan KKT backend parity on a bounded batch.
 """
 
 import numpy as np
@@ -17,10 +17,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mahi_mpc_tpu import ModelParameters, SolverOptions
-from mahi_mpc_tpu.models import make_double_pendulum
-from mahi_mpc_tpu.solver import CONVERGED, solve
-from mahi_mpc_tpu.transcribe.shooting import default_params, make_problem
+from mahi_mpc import ModelParameters, SolverOptions
+from mahi_mpc.models import make_double_pendulum
+from mahi_mpc.solver import CONVERGED, solve
+from mahi_mpc.transcribe.shooting import default_params, make_problem
 
 from test_solver_oracle import _tracking_params, scipy_solve
 
@@ -60,7 +60,7 @@ def test_state_bounds_oracle_double_pendulum():
 def test_state_bounds_oracle_mahi_arm():
     """4-DOF arm with binding joint-velocity limits (the flagship problem of
     BASELINE config #4, now with finite x bounds)."""
-    from mahi_mpc_tpu.models import make_mahi_arm
+    from mahi_mpc.models import make_mahi_arm
 
     dyn = make_mahi_arm()
     vlim = 2.0
@@ -114,10 +114,8 @@ def _bounded_batch(B=8, N=12, vlim=1.0):
 
 def test_state_bounds_lanes_parity():
     """solve_batch_lanes agrees with jax.vmap(solve) on a batch with finite
-    state bounds (same algorithm, lanes layout).  (A second lanes driver,
-    solve_batch_tpu, was also pinned here until the 2026-08-21 TPU A/B
-    showed it tied with this one — results_ab.json — and it was removed.)"""
-    from mahi_mpc_tpu.solver.batched import solve_batch_lanes
+    state bounds (same algorithm, lanes layout)."""
+    from mahi_mpc.solver.batched import solve_batch_lanes
 
     prob, pb = _bounded_batch()
     opts = SolverOptions(tol=1e-4, max_iter=60)
@@ -144,17 +142,18 @@ def test_state_bounds_lanes_parity():
     assert np.any(np.abs(Xl[:, 1:, 2:]) > vlim - 5e-2)
 
 
-def test_state_bounds_pallas_backend_parity():
-    """kkt_backend='pallas' (interpret mode on CPU) agrees with the scan
-    backend through the full SQP on a state-bounded batch."""
-    from mahi_mpc_tpu.solver.batched import solve_batch_lanes
+def test_state_bounds_pariccati_backend_parity():
+    """kkt_backend='pariccati' (the O(log N) associative scan) agrees with
+    the sequential scan through the full SQP on a state-bounded batch."""
+    import mahi_mpc.solver.pariccati  # noqa: F401  (registers the backend)
+    from mahi_mpc.solver.batched import solve_batch_lanes
 
     prob, pb = _bounded_batch(B=4)
     B = 4
     X0 = jnp.zeros((B, prob.N + 1, prob.nx), jnp.float32)
     U0 = jnp.zeros((B, prob.N, prob.nu), jnp.float32)
     opts_scan = SolverOptions(tol=1e-4, max_iter=40, kkt_backend="riccati")
-    opts_pal = SolverOptions(tol=1e-4, max_iter=40, kkt_backend="pallas")
+    opts_pal = SolverOptions(tol=1e-4, max_iter=40, kkt_backend="pariccati")
 
     a = jax.jit(lambda p_, x, u: solve_batch_lanes(prob, p_, x, u, opts_scan))(
         pb, X0, U0)

@@ -1,6 +1,6 @@
 """Horizon (time-axis) sharding: the shard_map parallel Riccati must equal
-the sequential scan bit-for-tolerance (SURVEY.md §5 long-context row; VERDICT
-r1 item 6: 'a test at n_time=2,4 proving equality with the sequential scan')."""
+the sequential scan bit-for-tolerance (SURVEY.md §5 long-context row), at
+n_time=2 and 4."""
 
 import numpy as np
 import jax
@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh
 
-from mahi_mpc_tpu import ModelParameters
-from mahi_mpc_tpu.models import make_double_pendulum
-from mahi_mpc_tpu.parallel.time_shard import solve_lqr_time_sharded
-from mahi_mpc_tpu.solver.riccati import solve_lqr_scan
-from mahi_mpc_tpu.solver.stage_qp import build_stage_qp
-from mahi_mpc_tpu.transcribe.shooting import default_params, make_problem
+from mahi_mpc import ModelParameters
+from mahi_mpc.models import make_double_pendulum
+from mahi_mpc.parallel.time_shard import solve_lqr_time_sharded
+from mahi_mpc.solver.riccati import solve_lqr_scan
+from mahi_mpc.solver.stage_qp import build_stage_qp
+from mahi_mpc.transcribe.shooting import default_params, make_problem
 
 jax.config.update("jax_enable_x64", True)
 
@@ -64,11 +64,10 @@ def test_time_shard_requires_divisible_horizon():
 
 def test_time_shard_backend_reachable_from_solver_options():
     """SolverOptions(kkt_backend='time_shard') routes the full SQP's KKT
-    solves through the sharded path and matches the scan backend (round-2
-    VERDICT item 7: previously unreachable from any public solve API)."""
-    from mahi_mpc_tpu import SolverOptions
-    from mahi_mpc_tpu.parallel.time_shard import enable_time_shard_backend
-    from mahi_mpc_tpu.solver import solve
+    solves through the sharded path and matches the scan backend."""
+    from mahi_mpc import SolverOptions
+    from mahi_mpc.parallel.time_shard import enable_time_shard_backend
+    from mahi_mpc.solver import solve
 
     mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(4), axis_names=("time",))
     name = enable_time_shard_backend(mesh)

@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mahi_mpc_tpu import SolverOptions, TrajectoryParameters
-from mahi_mpc_tpu.models import make_dynamics
-from mahi_mpc_tpu.models.integrators import make_step
-from mahi_mpc_tpu.trajgen import (TrajectoryGenerator, load_waypoints_csv,
+from mahi_mpc import SolverOptions, TrajectoryParameters
+from mahi_mpc.models import make_dynamics
+from mahi_mpc.models.integrators import make_step
+from mahi_mpc.trajgen import (TrajectoryGenerator, load_waypoints_csv,
                                   read_library_csv, write_library_csv)
 
 

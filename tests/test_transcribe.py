@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mahi_mpc_tpu import ModelParameters
-from mahi_mpc_tpu.models import make_double_pendulum
-from mahi_mpc_tpu.transcribe.shooting import (
+from mahi_mpc import ModelParameters
+from mahi_mpc.models import make_double_pendulum
+from mahi_mpc.transcribe.shooting import (
     LinPoint, default_params, make_problem)
 
 jax.config.update("jax_enable_x64", True)
